@@ -7,7 +7,7 @@ reference itself is forward-only).  The atlas texels are a param leaf
 (``scene_to_params(atlas=True)``); their gradient is the scatter-add adjoint
 of the nearest-texel gathers, derived automatically by jax.grad.
 
-Run on the TPU (default) or CPU (JAX_PLATFORMS=cpu).  Writes
+Runs on the default JAX device (a GPU, or the CPU with JAX_PLATFORMS=cpu).  Writes
 docs/images/texture_recovery.png — a 2x2 panel:
     [ true texture      | recovered texture ]
     [ target render     | recovered render  ]
@@ -22,19 +22,17 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
-import jax
-
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
-
 import jax.numpy as jnp
 import numpy as np
 
-from python_ray_tracer_tpu import RenderConfig, render_jit
-from python_ray_tracer_tpu.models.scenes import texture_task_scene
-from python_ray_tracer_tpu.optim import combine, scene_to_params
-from python_ray_tracer_tpu.optim.train import fit
-from python_ray_tracer_tpu.utils.image import save_png
+from python_ray_tracer_jax import RenderConfig, render_jit
+from python_ray_tracer_jax.models.scenes import texture_task_scene
+from python_ray_tracer_jax.optim import combine, scene_to_params
+from python_ray_tracer_jax.optim.train import fit
+from python_ray_tracer_jax.utils.cache import enable_compile_cache
+from python_ray_tracer_jax.utils.image import save_png
+
+enable_compile_cache()
 
 
 def make_texture(side: int = 64) -> np.ndarray:

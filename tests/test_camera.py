@@ -1,11 +1,10 @@
 """Camera ray generation parity with the reference (base.py:123-141)."""
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 
-from python_ray_tracer_tpu.camera import pixel_grid, ray_directions
-from python_ray_tracer_tpu.models.scenes import reference_scene
+from python_ray_tracer_jax.camera import pixel_grid, ray_directions
+from python_ray_tracer_jax.models.scenes import reference_scene
 
 
 def test_pixel_grid_matches_reference_formula():
@@ -36,23 +35,3 @@ def test_directions_are_unit():
     scene = reference_scene(32, 18, dtype=jnp.float32)
     d = np.asarray(ray_directions(scene.camera, jnp.float32))
     np.testing.assert_allclose(np.linalg.norm(d, axis=-1), 1.0, atol=1e-6)
-
-
-def test_ray_directions_t_matches_row_major():
-    """Lane-major (3, N) generation == transpose of the reference-exact
-    row-major path, with and without subpixel jitter."""
-    import numpy as np
-
-    from python_ray_tracer_tpu.camera import ray_directions, ray_directions_t
-    from python_ray_tracer_tpu.scene import Camera
-
-    cam = Camera(position=jnp.asarray([0.0, 0.2, -2.0]), width=64, height=36)
-    a = np.asarray(ray_directions(cam, jnp.float32))
-    b = np.asarray(ray_directions_t(cam, jnp.float32))
-    np.testing.assert_array_equal(b, a.T)
-
-    key = jax.random.PRNGKey(0)
-    jitter = jax.random.uniform(key, (64 * 36, 2), jnp.float32) - 0.5
-    a = np.asarray(ray_directions(cam, jnp.float32, jitter))
-    b = np.asarray(ray_directions_t(cam, jnp.float32, jitter.T))
-    np.testing.assert_allclose(b, a.T, rtol=1e-6, atol=1e-7)

@@ -4,8 +4,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from python_ray_tracer_tpu import RenderConfig, render
-from python_ray_tracer_tpu.models.scenes import random_spheres_scene, reference_scene
+from python_ray_tracer_jax import RenderConfig, render
+from python_ray_tracer_jax.models.scenes import random_spheres_scene, reference_scene
 
 
 def test_ray_chunked_matches_whole_frame():
@@ -43,7 +43,7 @@ def test_render_is_deterministic_and_finite():
 def test_grads_finite_with_debug_nans():
     """Backward pass stays NaN-free under jax_debug_nans (the masked-lane
     double-where contract in the sweep/shading)."""
-    from python_ray_tracer_tpu.optim import make_loss_fn, scene_to_params
+    from python_ray_tracer_jax.optim import make_loss_fn, scene_to_params
 
     scene = reference_scene(48, 27, dtype=jnp.float32)
     cfg = RenderConfig(max_depth=2, dtype=jnp.float32, visibility="smooth")

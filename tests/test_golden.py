@@ -10,9 +10,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from python_ray_tracer_tpu import RenderConfig, render
-from python_ray_tracer_tpu.models.scenes import reference_scene
-from python_ray_tracer_tpu.utils.image import to_uint8
+from python_ray_tracer_jax import RenderConfig, render
+from python_ray_tracer_jax.models.scenes import reference_scene
+from python_ray_tracer_jax.utils.image import to_uint8
 
 from .oracle import build_reference_scene, reference_render
 
@@ -53,7 +53,7 @@ def test_full_golden_image_bit_exact_f64(reference_render_png):
 
 
 def test_full_golden_image_f32_close(reference_render_png):
-    """float32 (TPU production dtype) with the hardened intersection path:
+    """float32 (the accelerator dtype) with the hardened intersection path:
     identical to the golden image except for a handful of edge pixels."""
     scene = reference_scene(960, 540, dtype=jnp.float32)
     cfg = RenderConfig(max_depth=6, dtype=jnp.float32)
@@ -67,9 +67,9 @@ def test_no_ties_in_golden_scene(reference_modules):
     """Our argmin nearest-hit diverges from the reference's sum-over-ties
     only on exact distance ties (base.py:103); assert the golden scene's
     primary rays have none."""
-    from python_ray_tracer_tpu.camera import ray_directions
-    from python_ray_tracer_tpu.config import faraway
-    from python_ray_tracer_tpu.ops.intersect import intersect_all
+    from python_ray_tracer_jax.camera import ray_directions
+    from python_ray_tracer_jax.config import faraway
+    from python_ray_tracer_jax.ops.intersect import intersect_all
 
     scene = reference_scene(480, 270, dtype=jnp.float64)
     dirs = ray_directions(scene.camera, jnp.float64)
@@ -111,7 +111,7 @@ def test_tie_mode_sum_matches_live_reference(reference_modules):
     )
     ref = reference_render(reference_modules, ref_scene)
 
-    from python_ray_tracer_tpu.scene import build_lights, build_spheres, make_scene, make_sphere_row
+    from python_ray_tracer_jax.scene import build_lights, build_spheres, make_scene, make_sphere_row
 
     rows = [
         make_sphere_row((0.0, 0.0, 3.0), 1.0, specular_roughness=0.3, diffuse_gain=dg,
@@ -169,7 +169,7 @@ def test_tie_mode_sum_reflective_continuation(reference_modules):
     )
     ref = reference_render(reference_modules, ref_scene)
 
-    from python_ray_tracer_tpu.scene import build_lights, build_spheres, make_scene, make_sphere_row
+    from python_ray_tracer_jax.scene import build_lights, build_spheres, make_scene, make_sphere_row
 
     rows = [
         make_sphere_row((0.0, 0.0, 3.0), 1.0, specular_gain=sg, specular_roughness=0.2,
@@ -192,7 +192,7 @@ def test_tie_mode_sum_reflective_continuation(reference_modules):
 def test_auto_depth_matches_unbounded_reference(reference_modules):
     """max_depth=auto on the README scene reproduces the unbounded-recursion
     reference at uint8 precision, with no hand-picked depth."""
-    from python_ray_tracer_tpu.render import auto_max_depth
+    from python_ray_tracer_jax.render import auto_max_depth
 
     w, h = 120, 68
     scene = reference_scene(w, h, dtype=jnp.float64)
@@ -209,8 +209,8 @@ def test_auto_depth_high_gain_mirror_scene():
     """A high-gain mirror pair (per-bounce energy factor 0.6) needs a much
     deeper bound than the defaults; auto depth must converge: adding 8 more
     bounces cannot change the uint8 image."""
-    from python_ray_tracer_tpu.render import auto_max_depth
-    from python_ray_tracer_tpu.scene import build_lights, build_spheres, make_scene, make_sphere_row
+    from python_ray_tracer_jax.render import auto_max_depth
+    from python_ray_tracer_jax.scene import build_lights, build_spheres, make_scene, make_sphere_row
 
     rows = [
         make_sphere_row((-1.05, 0.0, 3.0), 1.0, specular_gain=1.2, specular_roughness=0.05,
@@ -258,7 +258,7 @@ def test_multi_dome_light_quirk_matches_live_reference(reference_modules):
 
     ref = reference_render(mods, ref_scene)
 
-    from python_ray_tracer_tpu.scene import build_lights, build_spheres, make_scene, make_sphere_row
+    from python_ray_tracer_jax.scene import build_lights, build_spheres, make_scene, make_sphere_row
 
     rows = [
         make_sphere_row(

@@ -12,10 +12,10 @@ import numpy as np
 import optax
 import pytest
 
-from python_ray_tracer_tpu import RenderConfig, render
-from python_ray_tracer_tpu.models.scenes import reference_scene
-from python_ray_tracer_tpu.optim import combine, make_loss_fn, scene_to_params
-from python_ray_tracer_tpu.optim.train import fit, init_state, make_train_step
+from python_ray_tracer_jax import RenderConfig, render
+from python_ray_tracer_jax.models.scenes import reference_scene
+from python_ray_tracer_jax.optim import combine, make_loss_fn, scene_to_params
+from python_ray_tracer_jax.optim.train import fit, init_state, make_train_step
 
 W, H = 64, 36
 
@@ -158,7 +158,7 @@ def test_config3_loss_vs_reference_target():
 
     import jax.numpy as jnp
 
-    from python_ray_tracer_tpu.utils.image import load_png
+    from python_ray_tracer_jax.utils.image import load_png
 
     path = pathlib.Path("/root/reference/ref_spec_noRoughness_domelight.png")
     if not path.exists():
@@ -191,11 +191,10 @@ def test_config3_loss_vs_reference_target():
 def test_texture_atlas_finite_difference():
     """Atlas texels are trainable: ``scene_to_params(atlas=True)`` exposes
     ``textures.atlas`` and its gradient (a scatter-add through the
-    nearest-texel gathers, both the XLA sampler ``ops/shading.py:155`` and
-    the fused smooth kernels' external ``take(texels, flat) * dww``
-    composition) matches finite differences tightly — the image-diffuse
+    nearest-texel gathers of the sampler in ``ops/shading.py``) matches
+    finite differences tightly — the image-diffuse
     term is LINEAR in the sampled texel."""
-    from python_ray_tracer_tpu.models.scenes import texture_task_scene
+    from python_ray_tracer_jax.models.scenes import texture_task_scene
 
     rng = np.random.default_rng(3)
     tex = rng.uniform(0.2, 0.8, (8, 8, 3))
@@ -230,7 +229,7 @@ def test_texture_atlas_finite_difference():
 def test_texture_atlas_recovery_descends():
     """Inverse texture rendering end-to-end: perturb the atlas, Adam on the
     texels alone recovers toward the rendered target."""
-    from python_ray_tracer_tpu.models.scenes import texture_task_scene
+    from python_ray_tracer_jax.models.scenes import texture_task_scene
 
     rng = np.random.default_rng(5)
     tex = rng.uniform(0.1, 0.9, (8, 8, 3)).astype(np.float32)
@@ -246,7 +245,7 @@ def test_texture_atlas_recovery_descends():
 
 def test_sharded_grads_match_single():
     """Gradients through shard_map == single-device gradients."""
-    from python_ray_tracer_tpu.parallel import make_mesh
+    from python_ray_tracer_jax.parallel import make_mesh
 
     scene = reference_scene(48, 27, dtype=jnp.float32)
     cfg = RenderConfig(max_depth=2, dtype=jnp.float32, visibility="smooth")
@@ -268,8 +267,8 @@ def test_masked_updates_freezes_parameters():
     keep the ground sphere still)."""
     import optax
 
-    from python_ray_tracer_tpu.optim import masked_updates
-    from python_ray_tracer_tpu.optim.train import init_state, make_train_step
+    from python_ray_tracer_jax.optim import masked_updates
+    from python_ray_tracer_jax.optim.train import init_state, make_train_step
 
     scene = reference_scene(48, 27, dtype=jnp.float32)
     cfg = RenderConfig(max_depth=2, dtype=jnp.float32, visibility="smooth",

@@ -3,8 +3,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from python_ray_tracer_tpu.config import faraway
-from python_ray_tracer_tpu.ops.intersect import (
+from python_ray_tracer_jax.config import faraway
+from python_ray_tracer_jax.ops.intersect import (
     intersect_all,
     intersect_all_stable,
     nearest_hit,

@@ -10,9 +10,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from python_ray_tracer_tpu import RenderConfig, render
-from python_ray_tracer_tpu.models.scenes import inverse_task_scene, reference_scene
-from python_ray_tracer_tpu.parallel import make_mesh, pad_spheres, render_sharded
+from python_ray_tracer_jax import RenderConfig, render
+from python_ray_tracer_jax.models.scenes import inverse_task_scene, reference_scene
+from python_ray_tracer_jax.parallel import make_mesh, pad_spheres, render_sharded
 
 
 @pytest.fixture(scope="module")
@@ -124,7 +124,7 @@ def test_stochastic_sharded_matches_single():
 def test_tie_sum_sharded_matches_single():
     """tie_mode='sum' (double shading + BOTH winners' mirror continuations,
     a nested trace inside the bounce scan) composes with the mesh."""
-    from python_ray_tracer_tpu.scene import build_lights, build_spheres, make_scene, make_sphere_row
+    from python_ray_tracer_jax.scene import build_lights, build_spheres, make_scene, make_sphere_row
 
     rows = [
         make_sphere_row((0.0, 0.0, 3.0), 1.0, specular_gain=0.5, specular_roughness=0.2,

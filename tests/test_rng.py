@@ -2,8 +2,8 @@
 
 The reference used a global `np.random` seed for any stochastic sampling
 (SURVEY §4); the rebuild replaces it with a stateless counter-based hash
-because threefry-in-scan is pathological on the target backend
-(docs/PERF.md "the threefry trap").  These tests pin the statistical and
+because threefry-in-scan can lower very slowly
+(PERF.md, "the threefry trap").  These tests pin the statistical and
 structural contracts the renderer relies on: determinism, stream
 independence, uniformity, and scan-position invariance.
 """
@@ -14,7 +14,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from python_ray_tracer_tpu.ops import rng
+from python_ray_tracer_jax.ops import rng
 
 
 def test_deterministic_replay():
@@ -70,8 +70,8 @@ def test_seed_sensitivity():
 def test_scan_position_invariant():
     """A draw inside a lax.scan equals the same draw outside it.
 
-    This is the property that makes replay bit-exact across the XLA and
-    Pallas paths and across chunked vs unchunked rendering.
+    This is the property that makes replay bit-exact across sharded and
+    single-device paths and across chunked vs unchunked rendering.
     """
     s = rng.seed_root(77)
 

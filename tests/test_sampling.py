@@ -11,8 +11,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from python_ray_tracer_tpu import RenderConfig, render
-from python_ray_tracer_tpu.models.scenes import reference_scene
+from python_ray_tracer_jax import RenderConfig, render
+from python_ray_tracer_jax.models.scenes import reference_scene
 
 
 def test_spp1_unchanged():
@@ -76,23 +76,6 @@ def test_zero_roughness_stochastic_is_mirror():
     det = np.asarray(render(scene, RenderConfig(max_depth=3, dtype=jnp.float32)))
     sto = np.asarray(render(scene, RenderConfig(max_depth=3, dtype=jnp.float32, stochastic_roughness=True)))
     np.testing.assert_allclose(sto, det, rtol=1e-5, atol=1e-6)
-
-
-def test_stochastic_fused_matches_xla():
-    """The sublane kernel's in-kernel GGX perturb with host-fed xi must
-    reproduce the XLA stochastic path for the same seed (same key
-    schedule, same sampling math)."""
-    scene = reference_scene(64, 36, dtype=jnp.float32)
-    cfg_x = RenderConfig(max_depth=3, dtype=jnp.float32, stochastic_roughness=True, rng_seed=4)
-    cfg_p = RenderConfig(max_depth=3, dtype=jnp.float32, stochastic_roughness=True, rng_seed=4,
-                         use_pallas=True, pallas_interpret=True, block_rays=1024)
-    exp = np.asarray(render(scene, cfg_x))
-    got = np.asarray(render(scene, cfg_p))
-    diff = np.abs(got - exp)
-    # identical sample directions; float path differences only on isolated
-    # near-degenerate lanes (e.g. above/below-surface select boundaries)
-    assert np.quantile(diff, 0.999) < 1e-3
-    assert (diff > 1e-2).mean() < 1e-3
 
 
 def test_spp_with_ray_chunking():
